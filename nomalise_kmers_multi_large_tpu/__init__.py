@@ -1,10 +1,10 @@
-"""TPU-native digital normalization (diginorm) engine.
+"""Accelerator digital normalization (diginorm) engine.
 
-A brand-new JAX/XLA/Pallas framework with the capabilities of the reference C tool
+A JAX/XLA framework with the capabilities of the reference C tool
 ``alpapan/nomalise_kmers_multi_large`` (``normalise_kmers_multi_large.c``): streaming
 digital normalization of paired-end / single-end Illumina FASTQ/FASTA reads.
 
-Architecture (TPU-first, not a port):
+Architecture (a batched device design, not a port):
 
 - ``io``       host-side mmap FASTQ/FASTA reader, record framing, 2-bit packing,
                per-shard output writers (reference layers L1/L6).
@@ -15,7 +15,7 @@ Architecture (TPU-first, not a port):
                (reference L5, ``store_kmer``/``expand_local_hash_table``).
 - ``models``   the normalization decision models (keep/skip policies; the reference's
                per-mate AND rule plus its commented-out pair-average variant).
-- ``engine``   the streaming pipeline: batched host->HBM feed, jitted batch step,
+- ``engine``   the streaming pipeline: batched host->device feed, jitted batch step,
                keep-mask driven output, progress/final reporting, checkpoint/resume.
 - ``parallel`` device meshes and the two multi-chip strategies: Mode A (shard-local
                tables, data-parallel batches; generalizes the reference's independent

@@ -1,8 +1,9 @@
 """Run configuration.
 
 Mirrors the reference's global ``struct config_t cfg`` and its validation rules
-(normalise_kmers_multi_large.c:208-231, parse_arguments :520-745), plus TPU-native
-extensions (batch size, semantics mode, table kind, device mesh shape).
+(normalise_kmers_multi_large.c:208-231, parse_arguments :520-745), plus the
+device engine's extensions (batch size, semantics mode, table kind, device mesh
+shape).
 """
 from __future__ import annotations
 
@@ -55,15 +56,16 @@ class Config:
     single: bool = False                 # --single|-s
     print_table: bool = False            # --print|-P
 
-    # --- TPU-native extensions ---
+    # --- device engine extensions ---
     out_dir: str = "."
     batch_reads: int = 8192              # reads (or pairs) per device batch
     mode: Literal["exact", "relaxed"] = "exact"
     #: 'direct' = dense 4^k count array (exact reference semantics, k<=15);
     #: 'hashed' = open-addressing device table with growth; 'auto' picks.
-    table: Literal["auto", "bucket", "direct", "hashed"] = "auto"
+    table: Literal["auto", "direct", "hashed"] = "auto"
     max_read_len: int = 1023             # reference MAX_LINE_LENGTH-1 (:139)
-    pad_read_len: int = 0                # 0 => derived from data (rounded up to 128)
+    pad_read_len: int = 0                # 0 => derived from data (window count
+                                         # rounded up to a multiple of 8)
     seed_records: int = 0                # 0 => reference formula 1 + 3e6/n_fwd_files
     seed_table: str = ""                 # k-mer TSV to use as the seed set, the
                                          # reference's planned feature (nk.c:74-77)
@@ -75,8 +77,7 @@ class Config:
     stride: int = 1                      # sample every s-th window; 1 = reference
                                          # semantics; >1 per nk.c:30-33's own TODO
     dispatch_group: int = 1              # batches per device dispatch (lax.scan
-                                         # grouping; amortizes ~0.9 ms/dispatch
-                                         # runtime overhead — engine/step.py
+                                         # grouping, engine/step.py
                                          # step_many). 1 = one batch per call.
     prefetch: int = 2                    # host frame+pack batches prepared
                                          # ahead on a worker thread
@@ -123,21 +124,10 @@ class Config:
 
     @property
     def table_kind(self) -> str:
+        """'auto' resolves to the dense direct table while 4^k int32 slots
+        fit (k <= 15, 4 GiB at k = 15) and to the hashed table above."""
         if self.table != "auto":
             return self.table
-        if self.depth_per_shard > 65535:
-            # the bucket kernel's count limbs clamp at 65535 (lossless only
-            # when depth fits); auto falls back to an unclamped exact table
-            return "direct" if self.ksize <= 15 else "hashed"
-        # bucket = the production Pallas path (fused MXU kernel, compact
-        # state, ~8x the direct table's throughput on TPU); k > 15 uses the
-        # wide two-plane variant. On the CPU backend Pallas runs in interpret
-        # mode (orders of magnitude slower), so auto keeps the XLA tables
-        # there (direct for k<=15, hashed above).
-        import jax
-
-        if jax.default_backend() != "cpu":
-            return "bucket"
         return "direct" if self.ksize <= 15 else "hashed"
 
     @property
@@ -200,50 +190,16 @@ class Config:
             )
         if self.mode not in ("exact", "relaxed"):
             raise ConfigError(f"mode must be exact or relaxed, not {self.mode}")
-        if self.table not in ("auto", "bucket", "direct", "hashed"):
+        if self.table not in ("auto", "direct", "hashed"):
             raise ConfigError(
-                f"table must be auto, bucket, direct or hashed, not {self.table}"
+                f"table must be auto, direct or hashed, not {self.table}"
             )
         if self.table == "direct" and self.ksize > 15:
             raise ConfigError("direct table supports k<=15 (4^k int32 slots); use hashed")
-        if self.table == "bucket" and self.depth_per_shard > 65535:
-            # the reference validates depth up front (nk.c:734); the bucket
-            # kernel's 2x8-bit count limbs are exact only for depth <= 65535
-            raise ConfigError(
-                f"Depth per shard ({self.depth_per_shard}) exceeds 65535, the "
-                "bucket table's exact counting range; use --table direct or hashed"
-            )
         if self.batch_reads < 1:
             raise ConfigError(f"batch-reads ({self.batch_reads}) must be >= 1")
-        if self.table_kind == "bucket":
-            # the bucket kernel aggregates per-read tallies over at most
-            # 16384 read rows per batch (recsum block + 14-bit packed read
-            # ids, ops/bucket_kernel.py); validate up front like the
-            # reference's flag checks (nk.c:704-743) instead of failing an
-            # in-trace assert mid-run
-            rpr = 2 if self.reverse_files else 1
-            if self.batch_reads * rpr > 16384:
-                raise ConfigError(
-                    f"batch-reads ({self.batch_reads}) "
-                    f"{'pairs' if rpr == 2 else 'reads'} exceeds the bucket "
-                    f"table's 16384 read-rows-per-batch cap; use "
-                    f"--batch-reads <= {16384 // rpr} or --table "
-                    "direct/hashed"
-                )
         if self.stride < 1 or self.stride > self.ksize:
             raise ConfigError(f"stride ({self.stride}) must be in [1, k]")
-        if self.sharding == "global" and self.stride != 1 \
-                and self.table_kind == "bucket":
-            # the Mode B bucket route sorts/merges GLOBAL window ranks; a
-            # strided window subset breaks its fixed-bin accounting
-            # (parallel/modes.py ModeBBucketStep) — reject up front like the
-            # reference's flag checks (nk.c:704-743) instead of tripping an
-            # assert mid-run
-            raise ConfigError(
-                f"--stride {self.stride} is not supported with --sharding "
-                "global on the bucket table; use --sharding local or "
-                "--stride 1"
-            )
         if self.dispatch_group < 1:
             raise ConfigError(
                 f"dispatch-group ({self.dispatch_group}) must be >= 1")

@@ -84,8 +84,6 @@ class CheckpointManager:
                       "overflow": np.asarray(state.overflow)}
             if state.keys is not None:
                 arrays["keys"] = np.asarray(state.keys)
-            if state.keys2 is not None:
-                arrays["keys2"] = np.asarray(state.keys2)
             fd, tmp = tempfile.mkstemp(dir=self.dir, suffix=".npz.tmp")
             with os.fdopen(fd, "wb") as f:
                 np.savez(f, **arrays)
@@ -136,7 +134,6 @@ class CheckpointManager:
                     keys=jnp.asarray(z["keys"]) if "keys" in z else None,
                     used=jnp.asarray(z["used"]),
                     overflow=jnp.asarray(z["overflow"]),
-                    keys2=jnp.asarray(z["keys2"]) if "keys2" in z else None,
                 )
             )
         seeded = None

@@ -19,7 +19,7 @@ diagnostic tier, like the reference's own (its printf per k-mer is far
 slower than its hot loop).
 
 The deeper probe-trace tier (debug > 4, nk.c:1034) has no analogue: the
-bucket table never probes (bijective mix, exact fingerprints); its role is
+device tables probe in whole-stream rounds, not per k-mer; its role is
 served by the debug >= 3 decode(encode) batch self-checks
 (pipeline._debug_roundtrip).
 

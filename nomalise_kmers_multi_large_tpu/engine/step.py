@@ -1,6 +1,6 @@
 """The jitted per-batch device step: encode -> rank -> count -> classify.
 
-This one compiled function is the TPU replacement for the reference's whole
+This one compiled function is the device replacement for the reference's whole
 per-thread hot loop (``process_thread_chunk_paired``
 normalise_kmers_multi_large.c:1568-1770 and ``sequence_to_hash`` :1459-1499): where
 the reference walks one k-mer at a time through a CPU hash table, this processes
@@ -13,10 +13,8 @@ Exactness: with ``mode='exact'`` the sort-based ranks reproduce the reference's
 sequential upsert-then-test semantics for ANY batch size (see ops/streamrank.py).
 ``mode='relaxed'`` trades strict stream-order rank attribution for speed — the
 same kind of license the reference itself takes across threads (README.md:68),
-but far tighter. Per table: the bucket table keeps exact counts and relaxes
-only WHICH read sees which occurrence rank among a batch's copies of one code
-(1-key sort, ops/bucket_kernel.py); the direct table keeps ranks sequential
-only within a read pair and skips the global sort entirely.
+but far tighter: ranks stay sequential only within a read pair, and the
+direct table skips the global sort entirely.
 """
 from __future__ import annotations
 
@@ -24,7 +22,6 @@ from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 from nomalise_kmers_multi_large_tpu.models.diginorm import (
     keep_mask_paired,
@@ -91,18 +88,6 @@ class BatchStep:
         self._step = jax.jit(self._step_impl, donate_argnums=(0,))
         self._step_many = jax.jit(self._step_many_impl, donate_argnums=(0,))
         self._seed = jax.jit(self._seed_impl, donate_argnums=(0,))
-        self._rid_cache: dict = {}
-
-    def _rid_for(self, shape):
-        """Stream read ids for a [R, W] batch shape, cached: shape-only data
-        that a step_many scan then carries as a hoisted loop constant."""
-        got = self._rid_cache.get(shape)
-        if got is None:
-            r, w = shape
-            got = jnp.asarray(
-                np.minimum(np.arange(r * w, dtype=np.int32) // w, r - 1))
-            self._rid_cache[shape] = got
-        return got
 
     # ------------------------------------------------------------------
     def _encode(self, bases, lengths):
@@ -114,36 +99,12 @@ class BatchStep:
             valid = valid[:, :: self.stride]
         return hi, lo, valid
 
-    def _encode_mixed(self, bases, lengths):
-        """Fused encode+mix+key (bucket path): one Pallas pass produces
-        sort-ready keys; invalid windows are pre-set to the sentinel, so
-        validity is ``key != 0xFFFFFFFF`` (ops/encode_kernel.py)."""
-        from nomalise_kmers_multi_large_tpu.ops.encode_kernel import encode_keys
-
-        return encode_keys(
-            bases, lengths, self.k, self.canonical,
-            interpret=getattr(self.table, "interpret", False),
-        )
-
-    def _encode_keys_wide(self, bases, lengths):
-        """Fused wide encode (k = 16..31): two Feistel sort words per window;
-        the sentinel PAIR marks invalid windows, and a real w2 is never
-        0xFFFFFFFF, so validity is ``w2 != 0xFFFFFFFF``."""
-        from nomalise_kmers_multi_large_tpu.ops.encode_kernel import (
-            encode_keys_wide,
-        )
-
-        return encode_keys_wide(
-            bases, lengths, self.k, self.canonical,
-            interpret=getattr(self.table, "interpret", False),
-        )
-
     def _relaxed_ranks(self, hi, lo, valid, reads_per_record: int):
         """Pair-local ranks without a global sort.
 
         rank of window i within its record = # windows j <= i (over BOTH mates,
-        fwd windows first) with the same code. O(W'^2) VPU compares per record —
-        cheap next to the table's HBM traffic. Matches the reference exactly for
+        fwd windows first) with the same code. O(W'^2) elementwise compares per
+        record. Matches the reference exactly for
         duplicates within one record; cross-record duplicates in the same batch
         are relaxed (they all observe the pre-batch table count + own-record rank).
         """
@@ -175,65 +136,23 @@ class BatchStep:
         """
         R = bases.shape[0]
 
-        from nomalise_kmers_multi_large_tpu.table.bucket import BucketTable
         from nomalise_kmers_multi_large_tpu.table.direct import DirectTable
 
-        if isinstance(self.table, BucketTable):
-            # fully fused Pallas path: encode+mix in one VMEM pass
-            # (ops/encode_kernel.py), then upsert + classify + per-read
-            # aggregation in the bucket kernel. mode='exact' reproduces the
-            # reference's sequential semantics for any batch size;
-            # mode='relaxed' drops the read-id sort operand, so rank
-            # attribution among a batch's equal codes is arbitrary-order
-            # (table counts stay exact; ops/bucket_kernel.py `relaxed`).
-            # stride > 1 samples the fused keys post-kernel (key[:, ::s] —
-            # the same window subset as the unfused path; round-4 advisor
-            # finding: stride used to fall back to the unfused XLA encode,
-            # conflating the stride saving with an encode-path change)
-            relaxed = self.mode == "relaxed"
-            s = self.stride
-            # the read-id sort operand is a pure function of the batch SHAPE:
-            # materialize it outside the jitted body (cached per shape) so a
-            # step_many scan hoists it as a loop constant instead of
-            # rebuilding a 2M-element iota/div/min chain every iteration
-            if self.table.wide:
-                w1, w2 = self._encode_keys_wide(bases, lengths)
-                if s > 1:
-                    w1, w2 = w1[:, ::s], w2[:, ::s]
-                state, out = self.table.process_batch_keys(
-                    state, w1, w2, None, depth=self.depth,
-                    windows_per_read=w1.shape[1], keyed=True,
-                    relaxed=relaxed,
-                )
-                valid_key = w2
-            else:
-                key = self._encode_mixed(bases, lengths)
-                if s > 1:
-                    key = key[:, ::s]
-                state, out = self.table.process_batch_mixed(
-                    state, key, None, depth=self.depth,
-                    windows_per_read=key.shape[1], keyed=True,
-                    relaxed=relaxed, rid_flat=self._rid_for(key.shape),
-                )
-                valid_key = key
-            high_per_read = out.high_per_read[:R]
-            total_per_read = jnp.sum(
-                valid_key != jnp.uint32(0xFFFFFFFF), axis=1).astype(jnp.int32)
-            return self._classify(
-                state, high_per_read, total_per_read, rec_valid
-            )
-
-        hi, lo, valid = self._encode(bases, lengths)
+        with jax.named_scope("encode"):
+            hi, lo, valid = self._encode(bases, lengths)
         W = hi.shape[1]
         n = R * W
 
         if self.mode == "relaxed" and isinstance(self.table, DirectTable):
             # sort-free fast path: stream-order prior gather + duplicate
             # scatter-add; within-record sequentiality via pair-local ranks
-            state, prior = self.table.relaxed_update(
-                state, lo.reshape(n), valid.reshape(n)
-            )
-            local_rank = self._relaxed_ranks(hi, lo, valid, 2 if self.paired else 1)
+            with jax.named_scope("table"):
+                state, prior = self.table.relaxed_update(
+                    state, lo.reshape(n), valid.reshape(n)
+                )
+            with jax.named_scope("relaxed_ranks"):
+                local_rank = self._relaxed_ranks(
+                    hi, lo, valid, 2 if self.paired else 1)
             observed = prior.reshape(R, W) + local_rank
             high = (observed >= self.depth) & valid
         else:
@@ -241,35 +160,43 @@ class BatchStep:
                 hi.reshape(n), lo.reshape(n), valid.reshape(n),
                 hi_is_zero=self.k <= 15,
             )
-            state, observed = self.table.count_and_update(state, stream)
+            with jax.named_scope("table"):
+                state, observed = self.table.count_and_update(state, stream)
             if self.mode == "relaxed":
                 # pair-local sequential semantics: each occurrence observes the
                 # PRE-batch count (observed - global rank recovers it at segment
                 # granularity) plus its rank within its own record only
-                pre_batch = observed - stream.rank
-                local_rank = self._relaxed_ranks(
-                    hi, lo, valid, 2 if self.paired else 1
-                )
-                local_sorted = local_rank.reshape(n)[stream.src]
-                observed = pre_batch + local_sorted
-            high_sorted = (observed >= self.depth) & stream.valid
-            high = stream.unsort(high_sorted.astype(jnp.int8), jnp.int8(0))
-            high = high.reshape(R, W).astype(jnp.bool_)
+                with jax.named_scope("relaxed_ranks"):
+                    pre_batch = observed - stream.rank
+                    local_rank = self._relaxed_ranks(
+                        hi, lo, valid, 2 if self.paired else 1
+                    )
+                    local_sorted = local_rank.reshape(n)[stream.src]
+                    observed = pre_batch + local_sorted
+            with jax.named_scope("unsort"):
+                high_sorted = (observed >= self.depth) & stream.valid
+                high = stream.unsort(high_sorted.astype(jnp.int8), jnp.int8(0))
+                high = high.reshape(R, W).astype(jnp.bool_)
 
-        total_per_read = jnp.sum(valid, axis=1).astype(jnp.int32)
-        high_per_read = jnp.sum(high & valid, axis=1).astype(jnp.int32)
-        return self._classify(state, high_per_read, total_per_read, rec_valid)
+        with jax.named_scope("classify"):
+            total_per_read = jnp.sum(valid, axis=1).astype(jnp.int32)
+            high_per_read = jnp.sum(high & valid, axis=1).astype(jnp.int32)
+            return self._classify(
+                state, high_per_read, total_per_read, rec_valid, W)
 
-    def _classify(self, state, high_per_read, total_per_read, rec_valid):
-        """Keep/skip decision + batch stats from per-read window tallies."""
+    def _classify(self, state, high_per_read, total_per_read, rec_valid,
+                  windows: int):
+        """Keep/skip decision + batch stats from per-read window tallies
+        (each read's total is at most its row's window count)."""
         if self.paired:
             keep = keep_mask_paired(
                 high_per_read[0::2], total_per_read[0::2],
                 high_per_read[1::2], total_per_read[1::2],
-                self.coverage, self.pair_rule,
+                self.coverage, self.pair_rule, windows,
             )
         else:
-            keep = keep_mask_single(high_per_read, total_per_read, self.coverage)
+            keep = keep_mask_single(high_per_read, total_per_read,
+                                    self.coverage, windows)
 
         keep = keep & rec_valid
         nvalid = jnp.sum(rec_valid).astype(jnp.int32)
@@ -285,28 +212,6 @@ class BatchStep:
         greater length rule (len > k, :1347) by zeroing their lengths."""
         R = bases.shape[0]
 
-        from nomalise_kmers_multi_large_tpu.table.bucket import BucketTable
-
-        if isinstance(self.table, BucketTable):
-            s = self.stride
-            if self.table.wide:
-                w1, w2 = self._encode_keys_wide(bases, lengths)
-                if s > 1:
-                    w1, w2 = w1[:, ::s], w2[:, ::s]
-                state, _ = self.table.process_batch_keys(
-                    state, w1, w2, None, depth=self.depth,
-                    windows_per_read=w1.shape[1], seed=True, keyed=True
-                )
-            else:
-                key = self._encode_mixed(bases, lengths)
-                if s > 1:
-                    key = key[:, ::s]
-                state, _ = self.table.process_batch_mixed(
-                    state, key, None, depth=self.depth,
-                    windows_per_read=key.shape[1], seed=True, keyed=True
-                )
-            return state
-
         hi, lo, valid = self._encode(bases, lengths)
         n = R * hi.shape[1]
 
@@ -320,11 +225,10 @@ class BatchStep:
     def _step_many_impl(self, state: TableState, bases, lengths, rec_valid):
         """G sequential super-steps in ONE device dispatch (lax.scan).
 
-        Per-dispatch host/runtime overhead is ~0.9 ms on this platform
-        (experiments/perf_encode.py) — ~10% of a 16k-read batch. Grouping G
-        staged batches amortizes it to 0.9/G ms. Semantics are identical to G
-        ``step`` calls: the scan carries the table state, so batch i+1 sees
-        batch i's counts exactly as the streaming loop would.
+        Grouping G staged batches pays the per-dispatch host/runtime cost
+        once per group. Semantics are identical to G ``step`` calls: the
+        scan carries the table state, so batch i+1 sees batch i's counts
+        exactly as the streaming loop would.
 
         Args: leading axis G on every operand. Returns stacked
         (keep[G, B], StepStats[G], ReadTallies[G]).

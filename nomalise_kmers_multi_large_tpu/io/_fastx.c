@@ -1,6 +1,6 @@
 /* Native host-IO fast path: record framing and 2-bit packing.
  *
- * The TPU-native counterpart of the reference's C input layer (mmap_file /
+ * The batched counterpart of the reference's C input layer (mmap_file /
  * read_line / per-record parsing, normalise_kmers_multi_large.c:394-473).
  * Python drives mmap'd buffers through these batch functions; the numpy
  * implementations in reader.py/pack.py remain as the portable fallback and
@@ -11,8 +11,7 @@
  * index — parallel memchr count, then parallel position fill, then a serial
  * arithmetic pass builds record columns — and packing is a branch-free
  * vectorizable loop split row-wise across threads. Host ingest must sustain
- * multiple GB/s to keep a TPU chip fed (docs/PERF_NOTES.md host budget);
- * per-byte LUT walks cannot.
+ * multiple GB/s to keep an accelerator fed; per-byte LUT walks cannot.
  *
  * Built as a plain shared object (no pybind11); bound via ctypes.
  */

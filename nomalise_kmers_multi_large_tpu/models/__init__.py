@@ -1,5 +1,4 @@
 from nomalise_kmers_multi_large_tpu.models.diginorm import (  # noqa: F401
-    coverage_ratios,
     keep_mask_single,
     keep_mask_paired,
 )

@@ -34,21 +34,15 @@ def _histogram(counts: jnp.ndarray, max_count: int = 1024) -> jnp.ndarray:
 
 
 def spectrum(table, state, max_count: int = 1024) -> SpectrumReport:
-    """Compute the spectrum of a table shard (direct, hashed, or bucket)."""
-    from nomalise_kmers_multi_large_tpu.table.bucket import BucketTable
-
+    """Compute the spectrum of a table shard (direct or hashed)."""
     if state.keys is None:
         # direct table: slot == code; a zero count just means unseen
         hist = np.asarray(_histogram(state.counts, max_count))
         hist = hist.copy()
         hist[0] = 0  # empty slots are not multiplicity-0 k-mers
     else:
-        if isinstance(table, BucketTable):
-            # bucket: keys int32 [rows, 128] fingerprint+1, 0 = empty slot
-            occupied = state.keys != 0
-        else:
-            # hashed: keys uint32 [2, capacity] (hi, lo) planes
-            occupied = (state.keys[0] | state.keys[1]) != jnp.uint32(0)
+        # hashed: keys uint32 [2, capacity] (hi, lo) planes
+        occupied = (state.keys[0] | state.keys[1]) != jnp.uint32(0)
         cnt = jnp.where(occupied, state.counts, -1)
         hist = np.asarray(_histogram(cnt, max_count))
         hist = hist.copy()

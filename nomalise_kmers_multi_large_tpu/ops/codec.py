@@ -1,6 +1,6 @@
 """Vectorized k-mer codec.
 
-TPU-native replacement for the reference's per-kmer string path
+Device replacement for the reference's per-kmer string path
 (``encode_kmer_plain`` normalise_kmers_multi_large.c:1118-1126, ``reverse_complement``
 :1160-1173, ``get_canonical_kmer`` :1175-1180, ``sequence_to_hash`` window loop
 :1459-1499).
@@ -13,11 +13,11 @@ Design notes:
   therefore equivalent to comparing the k-mer strings (A<C<G<T is order-preserving),
   so canonical = min(code, revcomp_code) matches the reference's string ``strcmp``
   canonicalization exactly.
-- TPUs have no native 64-bit integers, so a code is carried as a pair of uint32
-  planes ``(hi, lo)`` with ``code = hi * 2^32 + lo``. k <= 31 needs <= 62 bits; for
+- JAX runs with 32-bit integers by default, so a code is carried as a pair of
+  uint32 planes ``(hi, lo)`` with ``code = hi * 2^32 + lo``. k <= 31 needs <= 62 bits; for
   k <= 16 the hi plane is constant zero and XLA folds it away.
 - All L-k+1 windows of a read are produced with k static shifted adds over the
-  [reads, windows] plane — pure VPU work, no gather, no strings. This is the batched
+  [reads, windows] plane — pure elementwise work, no gather, no strings. This is the batched
   equivalent of the reference's innermost hot loop (an O(k) strncpy+encode per
   window, :1464-1498) at ~10^3x the parallelism.
 - The all-A k-mer encodes to 0 and the reference silently drops it from both the

@@ -64,12 +64,19 @@ def sorted_occurrence_stream(
     Args:
       hi, lo: uint32 [N] code planes in stream order.
       valid: bool [N]; invalid occurrences are pushed to the end and excluded.
-      hi_is_zero: k <= 16 => the hi plane is structurally zero; sort 2 keys
-        instead of 3 (a few ms per 4M-window batch) and flag invalids in lo.
+      hi_is_zero: k <= 15 => the hi plane is structurally zero; sort 2 keys
+        instead of 3 and flag invalids in lo.
 
     The sort is lexicographic ``jax.lax.sort`` — the trailing unique stream
     index makes it stable, which is what gives ranks their sequential meaning.
     """
+    with jax.named_scope("sort"):
+        shi, slo, src, svalid = _sort(hi, lo, valid, hi_is_zero)
+    with jax.named_scope("segments"):
+        return _segments(shi, slo, src, svalid)
+
+
+def _sort(hi, lo, valid, hi_is_zero: bool):
     n = hi.shape[0]
     pos = jnp.arange(n, dtype=jnp.int32)
     if hi_is_zero:
@@ -86,6 +93,12 @@ def sorted_occurrence_stream(
         klo = jnp.where(valid, lo, _SENTINEL_HI)
         shi, slo, src = jax.lax.sort((khi, klo, pos), num_keys=3)
         svalid = shi != _SENTINEL_HI
+    return shi, slo, src, svalid
+
+
+def _segments(shi, slo, src, svalid) -> SortedStream:
+    n = shi.shape[0]
+    pos = jnp.arange(n, dtype=jnp.int32)
     first = jnp.zeros((n,), jnp.bool_).at[0].set(True)
     changed = jnp.concatenate(
         [first[:1], (shi[1:] != shi[:-1]) | (slo[1:] != slo[:-1])]

@@ -30,39 +30,18 @@ from nomalise_kmers_multi_large_tpu.config import Config
 from nomalise_kmers_multi_large_tpu.engine.pipeline import Normalizer
 from nomalise_kmers_multi_large_tpu.engine.step import BatchStep
 from nomalise_kmers_multi_large_tpu.parallel.mesh import data_mesh
-from nomalise_kmers_multi_large_tpu.parallel.modes import (
-    ModeAStep, ModeBBucketStep, ModeBStep,
-)
+from nomalise_kmers_multi_large_tpu.parallel.modes import ModeAStep, ModeBStep
 
 
 class MeshNormalizer(Normalizer):
     def __init__(self, cfg: Config, n_devices: int = 0):
         import jax
 
-        from nomalise_kmers_multi_large_tpu.config import ConfigError
-
         ndev = n_devices or cfg.n_devices or jax.device_count()
         self.ndev = ndev
         self.mode_b = cfg.sharding == "global"
         if self.mode_b:
             eff = cfg if cfg.shards == 1 else dataclasses.replace(cfg, shards=1)
-            if eff.table_kind == "bucket":
-                # production Mode B: the bucket table row-range-sharded over
-                # the mesh with explicit all_to_all k-mer routing
-                # (ModeBBucketStep; SURVEY.md section 5.8's north star).
-                # Ownership = the key's top log2(D) bits, so D must be a
-                # power of two.
-                if ndev & (ndev - 1):
-                    raise ConfigError(
-                        f"--sharding global --table bucket needs a "
-                        f"power-of-two device count, got {ndev}")
-                rpr = 2 if cfg.reverse_files else 1
-                if cfg.batch_reads * rpr > 16384:
-                    raise ConfigError(
-                        f"--sharding global --table bucket routes the whole "
-                        f"batch through one global read-id space capped at "
-                        f"16384 rows; --batch-reads {cfg.batch_reads} "
-                        f"{'pairs' if rpr == 2 else 'reads'} exceeds it")
         else:
             # Mode A: one shard per device (reference cpus -> devices). The
             # reference lets the user pick the thread count (-p, nk.c:674) —
@@ -77,13 +56,6 @@ class MeshNormalizer(Normalizer):
                     f"count)", file=sys.stderr)
             eff = cfg if cfg.shards == ndev else dataclasses.replace(cfg, shards=ndev)
         super().__init__(eff, _single_state=True)
-        if self.mode_b and self.cfg.table_kind == "bucket":
-            t = self.tables[0]
-            if t.rows % ndev or (t.rows // ndev) < t.tile_rows:
-                raise ConfigError(
-                    f"global bucket table rows ({t.rows}) must split into "
-                    f">= {t.tile_rows}-row shards across {ndev} devices; "
-                    f"raise --memory_start")
         self.mesh = data_mesh(ndev)
         self._mode_steps: dict = {}
         self._stacked = None       # Mode A stacked states
@@ -105,12 +77,7 @@ class MeshNormalizer(Normalizer):
                 pair_rule=self.cfg.pair_rule,
                 stride=self.cfg.stride,
             )
-            if not self.mode_b:
-                cls = ModeAStep
-            elif self.cfg.table_kind == "bucket":
-                cls = ModeBBucketStep
-            else:
-                cls = ModeBStep
+            cls = ModeBStep if self.mode_b else ModeAStep
             self._mode_steps[key] = cls(self.mesh, base)
         return self._mode_steps[key]
 
@@ -156,9 +123,6 @@ class MeshNormalizer(Normalizer):
             super()._maybe_grow(shard, inflow)
             return
         if self.mode_b:
-            if self._global_state is not None \
-                    and self.cfg.table_kind == "bucket":
-                self._maybe_grow_global(inflow)
             # direct is growth-free by construction; hashed Mode B growth is
             # not supported (starts at the --memory_start capacity;
             # saturation surfaces via the overflow warning)
@@ -167,7 +131,7 @@ class MeshNormalizer(Normalizer):
             return
         # Mode A mid-stream growth: every shard shares one table descriptor,
         # so all stacked shard states grow TOGETHER when the fullest shard's
-        # LIVE occupancy (the kernel-counted used, mirrored at every retire
+        # LIVE occupancy (the in-graph used counter, mirrored at every retire
         # via _post_used_scalar — see the base-class rationale for dropping
         # the old worst-case-inflow bound) crosses the headroom (reference
         # expand_local_hash_table semantics per thread, nk.c:933-934).
@@ -193,9 +157,9 @@ class MeshNormalizer(Normalizer):
                 )
             grown_states = []
             for st in shard_states:
-                # grow from the CURRENT descriptor `t`, not tables[0]: on a
-                # second doubling within one check the stale descriptor would
-                # remap with the wrong fingerprint bit (silent corruption)
+                # grow from the CURRENT descriptor `t`, not tables[0]: a
+                # second doubling within one check must start from the
+                # already-doubled capacity
                 t2, st2 = t.grown(st)
                 grown_states.append(st2)
             t = t2
@@ -213,49 +177,6 @@ class MeshNormalizer(Normalizer):
                 f"Warning: Mesh: shard tables are still over 90% full after "
                 f"expansion ({used:,})", file=sys.stderr,
             )
-
-    def _maybe_grow_global(self, inflow: int):
-        """Mode B bucket: grow the ONE global table (all row shards double
-        together). The doubling remap sends global row r to 2r+b, which keeps
-        the owner's top log2(D) bits, so a grown table is still validly
-        row-range sharded; the per-shard rebase offset d*(rows_l << shift) is
-        growth-invariant (rows_l doubles as shift drops one bit)."""
-        import jax
-        from jax.sharding import NamedSharding, PartitionSpec as P
-
-        t = self.tables[0]
-        headroom = getattr(t, "grow_headroom", None)
-        if headroom is None:
-            return
-        # live-occupancy mirror (global table's kernel-counted used,
-        # refreshed at every retire) — see the base-class rationale
-        used = int(self._used_bound[0])
-        if used <= headroom * t.capacity:
-            return
-        grew = False
-        state = self._global_state
-        while getattr(t, "can_grow", False) \
-                and used > headroom * t.capacity:
-            if self.cfg.verbose or self.cfg.debug:
-                print(
-                    f"Mesh: global bucket table expansion triggered, from "
-                    f"{t.capacity:,} to {t.capacity * 2:,} slots")
-            t, state = t.grown(state)
-            grew = True
-        if grew:
-            self.tables = [t] * len(self.tables)
-            sh_rows = NamedSharding(self.mesh, P("data"))
-            sh_rep = NamedSharding(self.mesh, P())
-            self._global_state = jax.tree.map(
-                lambda x: jax.device_put(
-                    x, sh_rows if x.ndim == 2 else sh_rep), state)
-            # old descriptors are baked into the compiled mode steps: rebuild
-            self._mode_steps.clear()
-            self._steps_cache.clear()
-        if not getattr(t, "can_grow", False) and used > t.capacity * 0.9:
-            print(
-                f"Warning: Mesh: global table is still over 90% full after "
-                f"expansion ({used:,})", file=sys.stderr)
 
     def _dispatch_queue(self, shard: int, q: list, paired: bool):
         import jax.numpy as jnp
@@ -374,10 +295,18 @@ class MeshNormalizer(Normalizer):
             return [self._global_state]
         if self._stacked is None:
             return self.states
-        return [
-            jax.tree.map(lambda x: x[s], self._stacked)
-            for s in range(self.ndev)
-        ]
+
+        def shard(x, s):
+            # shard s lives on device s: take it there. Indexing the stacked
+            # array instead gathers every shard onto one device
+            if x.is_fully_addressable:
+                for sh in x.addressable_shards:
+                    if sh.index[0].start == s:
+                        return sh.data[0]
+            return x[s]
+
+        return [jax.tree.map(lambda x, s=s: shard(x, s), self._stacked)
+                for s in range(self.ndev)]
 
     def _states_for_checkpoint(self):
         return self._materialized_states()

@@ -2,7 +2,7 @@
 
 The reference's only parallelism is pthread data-parallelism with per-thread
 tables and zero communication (normalise_kmers_multi_large.c:1772-1920,
-README.md:68). The TPU equivalents (SURVEY.md section 2.3):
+README.md:68). The device equivalents (SURVEY.md section 2.3):
 
 - Mode A ("local"): a 1-D ``data`` mesh; each device owns an independent table
   shard and a slice of every batch; only scalar counters cross devices (psum).

@@ -10,8 +10,8 @@ reference's join-and-sum (normalise_kmers_multi_large.c:1896-1912). Decisions us
 Mode B — one globally-sharded exact table: the count array lives sharded across
 devices on the slot axis while batches stay data-parallel. The step runs under
 jit with sharding constraints and XLA GSPMD partitions the sort/gather/scatter,
-inserting the all-to-all/all-gather collectives itself — the idiomatic TPU
-replacement for hand-written k-mer routing.
+inserting the all-to-all/all-gather collectives itself in place of hand-written
+k-mer routing.
 """
 from __future__ import annotations
 
@@ -19,7 +19,6 @@ from functools import partial
 from typing import NamedTuple
 
 import jax
-import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from nomalise_kmers_multi_large_tpu.engine.step import BatchStep, StepStats
@@ -73,18 +72,22 @@ class ModeAStep:
         """[S, ...]-stacked states, one per device. `base` (e.g. a seeded table,
         reference copy_hash_table :908-927) is replicated to every shard."""
         one = base if base is not None else self.step.table.init()
-        stacked = jax.tree.map(
-            lambda x: jnp.broadcast_to(x[None], (self.n,) + x.shape), one
-        )
-        sh = NamedSharding(self.mesh, P("data"))
-        return jax.tree.map(lambda x: jax.device_put(x, sh), stacked)
+        return self.stack_states([one] * self.n)
 
     def stack_states(self, states: list) -> TableState:
-        """Stack per-shard states (e.g. from a checkpoint) onto the mesh."""
+        """Stack per-shard states (e.g. from a checkpoint) onto the mesh,
+        copying shard s straight to device s: the stacked array is never
+        materialized on one device (S tables at once would not fit)."""
         assert len(states) == self.n
-        stacked = jax.tree.map(lambda *xs: jnp.stack(xs), *states)
         sh = NamedSharding(self.mesh, P("data"))
-        return jax.tree.map(lambda x: jax.device_put(x, sh), stacked)
+        devs = list(self.mesh.devices.flat)
+
+        def place(*xs):
+            shards = [jax.device_put(x, d)[None] for x, d in zip(xs, devs)]
+            return jax.make_array_from_single_device_arrays(
+                (self.n,) + xs[0].shape, sh, shards)
+
+        return jax.tree.map(place, *states)
 
     def __call__(self, state, bases, lengths, rec_valid):
         sh = NamedSharding(self.mesh, P("data"))
@@ -104,269 +107,6 @@ class ModeAStep:
             jax.device_put(ls, sh),
             jax.device_put(rs, sh),
         )
-
-
-class ModeBBucketStep:
-    """Mode B on the PRODUCTION bucket table: one exact logical table,
-    row-range-sharded over the mesh, with explicit all_to_all k-mer routing
-    (SURVEY.md section 5.8's sharded-table north star, BASELINE option 2).
-
-    Layout: the global [rows, lanes] planes are sharded on the row axis;
-    device d owns global rows [d*rows/D, (d+1)*rows/D). The owner of a key is
-    its TOP log2(D) bits, so a shard's sub-table is itself a valid bucket
-    table over rebased keys with the GLOBAL fingerprint width — and growth
-    never crosses shards (the doubling remap sends row r to 2r+b, which has
-    the same top bits; table/bucket.py _split_rows).
-
-    Per step, on each device (shard_map over 'data'):
-      1. fused-encode MY contiguous read slice (reference stream order);
-      2. 2-key local sort (key, global read id): owners are the top key
-         bits, so this both GROUPS elements by destination and pre-sorts;
-      3. one all_to_all of fixed-size per-destination bins (padded with
-         sentinels; a bin overflow is counted and surfaced, never silent);
-      4. the standard bucket kernel on the received stream, rebased to my
-         row range — its own (key, rid) sort merges the D sorted runs, so
-         ranks are GLOBAL-exact and the recsum one-hot attributes high
-         windows to GLOBAL read ids (n_reads <= 16384 covers the batch);
-      5. psum the per-read tallies + counters; classify my record slice.
-
-    Decisions are bit-identical to a single-device exact run at full depth:
-    every element still observes prior_table_count + its global stream rank.
-    """
-
-    def __init__(self, mesh: Mesh, step: BatchStep):
-        import numpy as np
-
-        from nomalise_kmers_multi_large_tpu.models.diginorm import (
-            keep_mask_paired, keep_mask_single,
-        )
-        from nomalise_kmers_multi_large_tpu.ops.bucket_kernel import (
-            bucket_batch, bucket_batch_wide, _RID_BITS,
-        )
-        from nomalise_kmers_multi_large_tpu.ops.encode_kernel import (
-            encode_keys, encode_keys_wide,
-        )
-
-        self.mesh = mesh
-        self.step = step
-        t = step.table
-        D = mesh.shape["data"]
-        self.n = D
-        assert step.stride == 1, "Mode B bucket routing requires stride 1"
-        assert t.rows % D == 0, f"table rows {t.rows} not divisible by {D}"
-        rows_l = t.rows // D
-        assert rows_l >= t.tile_rows, (
-            f"rows/device {rows_l} below tile_rows {t.tile_rows}")
-        wide = t.wide
-        rb = int(np.log2(t.rows))
-        shift = (32 - rb) if wide else (2 * t.k - rb)  # fingerprint width
-        sent = jnp.uint32(0xFFFFFFFF)
-        pack2 = wide and (2 * t.k - 32) + _RID_BITS <= 31
-        k3 = wide and not pack2
-        rpr = 2 if step.paired else 1
-        interp = getattr(t, "interpret", False)
-        relax = step.mode == "relaxed"
-
-        def _route(key_flat, aux_planes, rid_flat, n_real, d):
-            """Sort-by-key locally, cut per-owner segments, exchange fixed
-            bins. aux_planes ride along (w2/packed words). Returns received
-            flat planes + the dropped-element count."""
-            n_l = key_flat.shape[0]
-            bmax = max(8, -(-int(n_l / D * (1.5 if D <= 8 else 1.25)) // 8) * 8)
-            ops = (key_flat,) + aux_planes + (
-                (rid_flat,) if rid_flat is not None else ())
-            sorted_ops = jax.lax.sort(
-                ops, num_keys=len(ops) if k3 else min(len(ops), 2),
-                is_stable=len(ops) == 1)
-            skey = sorted_ops[0]
-            bounds = (jnp.arange(1, D, dtype=jnp.uint32)
-                      * jnp.uint32(rows_l << shift))
-            starts = jnp.searchsorted(skey, bounds).astype(jnp.int32)
-            seg_start = jnp.concatenate(
-                [jnp.zeros(1, jnp.int32), starts])
-            seg_end = jnp.concatenate(
-                [starts, n_real.astype(jnp.int32)[None]])
-            cnt = seg_end - seg_start
-            dropped = jnp.sum(jnp.maximum(cnt - bmax, 0))
-            iota = jnp.arange(bmax, dtype=jnp.int32)
-            recvs = []
-            for pi, plane in enumerate(sorted_ops):
-                pad_val = sent if plane.dtype == jnp.uint32 else 0
-                ppad = jnp.concatenate(
-                    [plane, jnp.full((bmax,), pad_val, plane.dtype)])
-                rows_send = [
-                    jnp.where(
-                        iota < cnt[j],
-                        jax.lax.dynamic_slice(ppad, (seg_start[j],), (bmax,)),
-                        pad_val,
-                    )
-                    for j in range(D)
-                ]
-                send = jnp.stack(rows_send)              # (D, bmax)
-                recvs.append(jax.lax.all_to_all(
-                    send, "data", split_axis=0, concat_axis=0).reshape(-1))
-            return recvs, dropped
-
-        def _sharded(state: TableState, bases, lengths, rec_valid,
-                     seed: bool):
-            d = jax.lax.axis_index("data")
-            R_l = bases.shape[0]
-            if wide:
-                w1, w2 = encode_keys_wide(
-                    bases, lengths, t.k, step.canonical, interpret=interp)
-                valid = w2 != sent
-                key2d = w1
-            else:
-                key2d = encode_keys(
-                    bases, lengths, t.k, step.canonical, interpret=interp)
-                valid = key2d != sent
-            W = key2d.shape[1]
-            n_l = R_l * W
-            total_l = jnp.sum(valid, axis=1).astype(jnp.int32)
-            n_real = jnp.sum(valid, dtype=jnp.int32)
-            rid0 = d * R_l + jax.lax.broadcasted_iota(
-                jnp.int32, (R_l, W), 0)
-            key_flat = key2d.reshape(n_l)
-            rid_flat = rid0.reshape(n_l)
-            if not wide:
-                recv, dropped = _route(key_flat, (), rid_flat, n_real, d)
-                rkey, rrid = recv
-            elif pack2:
-                w2p = jnp.where(
-                    w2.reshape(n_l) == sent, sent,
-                    (w2.reshape(n_l) << jnp.uint32(_RID_BITS))
-                    | rid_flat.astype(jnp.uint32))
-                recv, dropped = _route(key_flat, (w2p,), None, n_real, d)
-                rkey, rk2p = recv
-                rrid = jax.lax.bitcast_convert_type(
-                    rk2p & jnp.uint32((1 << _RID_BITS) - 1), jnp.int32)
-                rw2 = jnp.where(rk2p == sent, sent,
-                                rk2p >> jnp.uint32(_RID_BITS))
-            else:
-                recv, dropped = _route(
-                    key_flat, (w2.reshape(n_l),), rid_flat, n_real, d)
-                rkey, rw2, rrid = recv
-            # rebase received keys to MY row range (global fingerprint width).
-            # Invalidity must be judged per the encode contract: narrow = the
-            # key itself (real keys < 2^2k <= 2^30 never hit the sentinel);
-            # wide = w2 (a REAL w1 can be 0xFFFFFFFF for k > 16 — rebasing it
-            # keeps that element on this shard's last row, as it should be,
-            # while bin-padding sentinels pass through untouched).
-            base = (d.astype(jnp.uint32) * jnp.uint32(rows_l << shift))
-            invalid = (rw2 == sent) if wide else (rkey == sent)
-            rkey = jnp.where(invalid, sent, rkey - base)
-            n_reads = D * R_l
-            if wide:
-                out = bucket_batch_wide(
-                    state.keys, state.keys2, state.counts, rkey,
-                    jnp.asarray(rw2, jnp.uint32), None,
-                    k=t.k, rows=rows_l, depth=step.depth,
-                    windows_per_read=W, chunk=16384,
-                    tile_rows=t.tile_rows, lanes=t.lanes, seed=seed,
-                    keyed=True, interpret=interp, rid_flat=rrid,
-                    n_reads=n_reads, row_shift=shift, relaxed=relax)
-                new_state = TableState(
-                    counts=out.counts, keys=out.fpA,
-                    used=state.used + jax.lax.psum(out.inserted, "data"),
-                    overflow=state.overflow + jax.lax.psum(
-                        out.overflow + dropped, "data"),
-                    keys2=out.fpB)
-                high_local = out.high_per_read
-            else:
-                out = bucket_batch(
-                    state.keys, state.counts, rkey, None,
-                    k=t.k, rows=rows_l, depth=step.depth,
-                    windows_per_read=W, chunk=16384,
-                    tile_rows=t.tile_rows, lanes=t.lanes, seed=seed,
-                    keyed=True, interpret=interp, rid_flat=rrid,
-                    n_reads=n_reads, fp_bits=shift, relaxed=relax)
-                new_state = TableState(
-                    counts=out.counts, keys=out.fp,
-                    used=state.used + jax.lax.psum(out.inserted, "data"),
-                    overflow=state.overflow + jax.lax.psum(
-                        out.overflow + dropped, "data"))
-                high_local = out.high_per_read
-            high = jax.lax.psum(high_local, "data")      # (D*R_l,) global
-            my_high = jax.lax.dynamic_slice(high, (d * R_l,), (R_l,))
-            if step.paired:
-                keep = keep_mask_paired(
-                    my_high[0::2], total_l[0::2],
-                    my_high[1::2], total_l[1::2],
-                    step.coverage, step.pair_rule)
-            else:
-                keep = keep_mask_single(my_high, total_l, step.coverage)
-            keep = keep & rec_valid
-            nvalid = jax.lax.psum(
-                jnp.sum(rec_valid).astype(jnp.int32), "data")
-            nprint = jax.lax.psum(jnp.sum(keep).astype(jnp.int32), "data")
-            stats = StepStats(processed=nvalid, printed=nprint,
-                              skipped=nvalid - nprint)
-            tallies = (my_high, total_l)
-            return new_state, keep, stats, tallies
-
-        state_spec = TableState(
-            counts=P("data"), keys=P("data"), used=P(), overflow=P(),
-            keys2=P("data") if (t.wide and t.has_plane_b) else None)
-        smapped = partial(
-            jax.shard_map, mesh=mesh,
-            in_specs=(state_spec, P("data"), P("data"), P("data")),
-            out_specs=(state_spec, P("data"), P(), (P("data"), P("data"))),
-            check_vma=False,
-        )
-        _step_fn = smapped(partial(_sharded, seed=False))
-        _seed_fn = smapped(partial(_sharded, seed=True))
-
-        def _one(state, bases, lengths, rec_valid):
-            state, keep, stats, (high, total) = _step_fn(
-                state, bases, lengths, rec_valid)
-            from nomalise_kmers_multi_large_tpu.engine.step import ReadTallies
-
-            return state, keep, stats, ReadTallies(high=high, total=total)
-
-        self._fn = jax.jit(_one, donate_argnums=(0,))
-        self._seed = jax.jit(
-            lambda st, b, ln: _seed_fn(
-                st, b, ln, jnp.zeros(b.shape[0] // rpr, bool))[0],
-            donate_argnums=(0,))
-
-        def _many(state, bs, ls, rs):
-            def body(st, xs):
-                st, keep, stats, tallies = _one(st, *xs)
-                return st, (keep, stats, tallies)
-
-            state, (keep, stats, tallies) = jax.lax.scan(
-                body, state, (bs, ls, rs))
-            return state, keep, stats, tallies
-
-        self._fn_many = jax.jit(_many, donate_argnums=(0,))
-
-    # -- state management (engine protocol, mirrors ModeBStep) ----------
-    def _spec(self, x, name):
-        if name in ("counts", "keys", "keys2") and x is not None:
-            return NamedSharding(self.mesh, P("data"))
-        return NamedSharding(self.mesh, P())
-
-    def init_state(self, base: TableState | None = None) -> TableState:
-        st = base if base is not None else self.step.table.init()
-        return TableState(*(
-            None if x is None else jax.device_put(x, self._spec(x, name))
-            for name, x in zip(TableState._fields, st)))
-
-    def stack_states(self, states: list) -> TableState:
-        assert len(states) == 1
-        return self.init_state(states[0])
-
-    def __call__(self, state, bases, lengths, rec_valid):
-        sh = NamedSharding(self.mesh, P("data"))
-        return self._fn(
-            state, jax.device_put(bases, sh), jax.device_put(lengths, sh),
-            jax.device_put(rec_valid, sh))
-
-    def many(self, state, bs, ls, rs):
-        sh = NamedSharding(self.mesh, P(None, "data"))
-        return self._fn_many(
-            state, jax.device_put(bs, sh), jax.device_put(ls, sh),
-            jax.device_put(rs, sh))
 
 
 class ModeBStep:

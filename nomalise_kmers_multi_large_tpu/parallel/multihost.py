@@ -1,4 +1,4 @@
-"""Multi-host (pod-slice) support.
+"""Multi-host support.
 
 The reference is strictly single-process (SURVEY.md section 2.3); scaling
 across hosts is new surface. Model: each host process runs the streaming
@@ -7,8 +7,7 @@ parallelism — diginorm's per-thread-independent semantics make this exact for
 Mode A), with the mesh spanning all processes' devices for Mode B.
 
 Launch: set the standard JAX cluster env (JAX_COORDINATOR_ADDRESS,
-JAX_NUM_PROCESSES, JAX_PROCESS_ID) or rely on TPU pod auto-detection, then run
-the same CLI on every host. `maybe_initialize` is a no-op in single-process
+JAX_NUM_PROCESSES, JAX_PROCESS_ID), then run the same CLI on every host. `maybe_initialize` is a no-op in single-process
 runs, so the code path is identical everywhere.
 """
 from __future__ import annotations
@@ -29,14 +28,16 @@ def maybe_initialize() -> tuple[int, int]:
     if addr:
         nproc = os.environ.get("JAX_NUM_PROCESSES")
         pid = os.environ.get("JAX_PROCESS_ID")
-        if nproc is not None and pid is not None:
-            jax.distributed.initialize(
-                coordinator_address=addr,
-                num_processes=int(nproc),
-                process_id=int(pid),
-            )
-        else:
-            jax.distributed.initialize()  # pod auto-detection
+        if nproc is None or pid is None:
+            # no cluster auto-detection to fall back on: say what is missing
+            raise ValueError(
+                "JAX_COORDINATOR_ADDRESS needs JAX_NUM_PROCESSES and "
+                "JAX_PROCESS_ID set beside it")
+        jax.distributed.initialize(
+            coordinator_address=addr,
+            num_processes=int(nproc),
+            process_id=int(pid),
+        )
     try:
         return jax.process_index(), jax.process_count()
     except RuntimeError:

@@ -1,6 +1,3 @@
-from nomalise_kmers_multi_large_tpu.table.bucket import (  # noqa: F401
-    BucketTable, BucketTableWide,
-)
 from nomalise_kmers_multi_large_tpu.table.direct import DirectTable  # noqa: F401
 from nomalise_kmers_multi_large_tpu.table.hashed import HashedTable  # noqa: F401
 from nomalise_kmers_multi_large_tpu.table.base import CountTable, TableState  # noqa: F401
@@ -9,23 +6,10 @@ from nomalise_kmers_multi_large_tpu.table.base import CountTable, TableState  # 
 def make_table(cfg) -> "CountTable":
     """Pick the table implementation for a config.
 
-    - "bucket": the production Pallas bucket table: exact sequential
-      semantics, compact state, no XLA scatter/gather on the hot path.
-      k <= 15 uses the single-word table, k = 16..31 the wide two-plane one.
     - "direct": dense 4^k int32 array (k<=15) — the layout the reference's
       own sizing advice degenerates to (normalise_kmers_multi_large.c:20-22).
     - "hashed": open-addressing table with device growth for k>15.
     """
-    kind = cfg.table_kind
-    if kind == "bucket":
-        from nomalise_kmers_multi_large_tpu.table.bucket import (
-            default_rows, default_rows_wide,
-        )
-        mem = cfg.memory_gb * (1 << 30) if cfg.memory_gb else None
-        if cfg.ksize > 15:
-            return BucketTableWide(
-                k=cfg.ksize, rows=default_rows_wide(cfg.ksize, mem))
-        return BucketTable(k=cfg.ksize, rows=default_rows(cfg.ksize, mem))
-    if kind == "direct":
+    if cfg.table_kind == "direct":
         return DirectTable(k=cfg.ksize)
     return HashedTable(k=cfg.ksize, initial_capacity=cfg.initial_hash_capacity)

@@ -33,8 +33,6 @@ class TableState(NamedTuple):
     used: jax.Array                 # int32 [] occupied slots (reference ht->used)
     overflow: jax.Array             # int32 [] codes dropped for want of a free slot
                                     # (hashed only; triggers growth)
-    keys2: Optional[jax.Array] = None  # second fingerprint plane (wide bucket
-                                       # table, k > 15); None elsewhere
 
 
 class CountTable(abc.ABC):

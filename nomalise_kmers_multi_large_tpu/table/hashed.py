@@ -1,6 +1,6 @@
 """Hashed count table: device-resident open addressing with on-device insertion.
 
-The TPU re-design of the reference's ``store_kmer``/``expand_local_hash_table``
+The device re-design of the reference's ``store_kmer``/``expand_local_hash_table``
 (normalise_kmers_multi_large.c:929-1108) for k > 15, where a dense 4^k array no
 longer fits. Intentional, documented divergences from the reference:
 
@@ -19,7 +19,9 @@ claimed by scattering a unique per-code TICKET into the key hi-plane (a single
 32-bit element-wise scatter — duplicate indices resolve to exactly one surviving
 value), the survivors re-read their ticket to learn they won, and only winners
 (now guaranteed unique slot indices) write their real key planes. This replaces the
-CPU's compare-and-swap, which TPUs do not have.
+CPU's compare-and-swap with plain XLA scatters: whichever duplicate write the
+backend lets survive (last writer on the CPU, an arbitrary one under GPU
+scatter), exactly one ticket lands per slot and its owner is the only winner.
 """
 from __future__ import annotations
 
@@ -101,9 +103,10 @@ def _insert(keys: jax.Array, qhi: jax.Array, qlo: jax.Array, want: jax.Array,
 
     slot0 = jnp.full((n,), -1, jnp.int32)
     new0 = jnp.zeros((), jnp.int32)
-    keys, slot, pending, n_new, _ = jax.lax.while_loop(
-        cond, round_body, (keys, slot0, want, new0, jnp.uint32(0))
-    )
+    with jax.named_scope("probe"):
+        keys, slot, pending, n_new, _ = jax.lax.while_loop(
+            cond, round_body, (keys, slot0, want, new0, jnp.uint32(0))
+        )
     return keys, slot, n_new, jnp.sum(pending).astype(jnp.int32)
 
 

@@ -25,8 +25,10 @@ def revcomp(seq: str) -> str:
 
 
 class Oracle:
-    def __init__(self, k: int, depth: int, coverage: float, canonical: bool = False):
+    def __init__(self, k: int, depth: int, coverage: float, canonical: bool = False,
+                 stride: int = 1):
         self.k = k
+        self.stride = stride  # count every stride-th window (engine --stride)
         self.depth = depth
         self.coverage = coverage
         self.canonical = canonical
@@ -36,7 +38,7 @@ class Oracle:
     def _codes(self, seq: str):
         seq = seq.replace("N", "A")
         k = self.k
-        for i in range(len(seq) - k + 1):
+        for i in range(0, len(seq) - k + 1, self.stride):
             km = seq[i: i + k]
             if self.canonical:
                 rc = revcomp(km)

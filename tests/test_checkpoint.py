@@ -8,7 +8,7 @@ import pytest
 from nomalise_kmers_multi_large_tpu.config import Config
 from nomalise_kmers_multi_large_tpu.engine.pipeline import Normalizer
 
-T = pathlib.Path("/root/reference/test")
+T = pathlib.Path(__file__).parent / "data"
 
 
 def _cfg(tmp, **kw):
@@ -115,11 +115,11 @@ def test_resume_after_completed_run_reports_totals(tmp_path):
 
 
 def test_wide_table_checkpoint_roundtrip(tmp_path):
-    """keys2 (the wide table's second fingerprint plane) must survive a
-    save/load cycle and resume byte-identically at k=21."""
+    """The hashed table's key planes must survive a save/load cycle and
+    resume byte-identically at k=21."""
     a, b = tmp_path / "a", tmp_path / "b"
     a.mkdir(), b.mkdir()
-    kw = dict(ksize=21, table="bucket", forward_files=(str(T / "2seq.fastq"),),
+    kw = dict(ksize=21, table="hashed", forward_files=(str(T / "2seq.fastq"),),
               depth=2, batch_reads=1)
     rep_full = Normalizer(_cfg(a, **kw)).run()
     out_full = (a / "output_forward.k21_norm2_thread0.fastq").read_bytes()

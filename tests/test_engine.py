@@ -86,7 +86,7 @@ def _run_batched(table, reads, batch_size, paired, canonical, mode="exact"):
 @pytest.mark.parametrize("paired", [False, True])
 @pytest.mark.parametrize("canonical", [False, True])
 @pytest.mark.parametrize("batch_size", [1, 7, 64])
-def test_exact_matches_oracle(paired, canonical, batch_size):
+def test_exact_matches_oracle(paired, canonical, batch_size, kind="direct"):
     reads = _make_reads(128)
     oracle = Oracle(K, DEPTH, COVERAGE, canonical)
     want = []
@@ -97,14 +97,23 @@ def test_exact_matches_oracle(paired, canonical, batch_size):
         for r in reads:
             want.append(oracle.process_single(r))
 
-    table = DirectTable(K)
+    table = DirectTable(K) if kind == "direct" else HashedTable(K, 1 << 12)
     got, state = _run_batched(table, reads, batch_size, paired, canonical)
     assert got == want
+    assert int(state.overflow) == 0
 
     # table contents must equal the oracle's
     hi, lo, counts = table.export(state)
     got_table = {int(l): int(c) for l, c in zip(lo, counts)}
     assert got_table == oracle.counts
+
+
+@pytest.mark.parametrize("paired", [False, True])
+@pytest.mark.parametrize("canonical", [False, True])
+@pytest.mark.parametrize("batch_size", [1, 7, 64])
+def test_exact_matches_oracle_hashed(paired, canonical, batch_size):
+    """The same grid on the hashed table (the k > 15 main path)."""
+    test_exact_matches_oracle(paired, canonical, batch_size, kind="hashed")
 
 
 @pytest.mark.parametrize("batch_size", [1, 13, 64])
@@ -205,3 +214,27 @@ def test_pair_rule_avg_end_to_end(tmp_path):
     assert rep_avg.total_printed == 2
     assert "@r3" not in out_and
     assert "@r0" in out_avg and "@r3" in out_avg
+
+
+@pytest.mark.parametrize("coverage", [0.9, 0.5, 1.0, 1 / 3, 0.001])
+def test_keep_rule_is_f32_ratio(coverage):
+    """The device keep rule is a host-built integer table; it must decide
+    exactly like f32(high) / f32(total) < f32(coverage) with IEEE rounding,
+    including ratios that land on the coverage (9/10 at -g 0.9 is skipped)."""
+    from nomalise_kmers_multi_large_tpu.models.diginorm import (
+        keep_mask_single,
+    )
+
+    total = np.repeat(np.arange(0, 301), np.arange(1, 302)).astype(np.int32)
+    high = np.concatenate([np.arange(t + 1) for t in range(301)]
+                          ).astype(np.int32)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        ratio = np.where(total > 0, high.astype(np.float32)
+                         / total.astype(np.float32), np.float32(0))
+    want = ratio < np.float32(coverage)
+    got = np.asarray(keep_mask_single(jnp.asarray(high), jnp.asarray(total),
+                                      coverage, 300))
+    np.testing.assert_array_equal(got, want)
+    if coverage == 0.9:
+        assert not got[(total == 10) & (high == 9)].any()
+        assert got[(total == 10) & (high == 8)].all()

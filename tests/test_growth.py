@@ -2,22 +2,19 @@
 
 The reference grows its per-thread table at 0.8 load factor on every insert
 (nk.c:933-934, expand_local_hash_table :1055-1108) and therefore never loses
-an insert. These tests pin the TPU equivalents: the bucket table's double-rows
-remap, the hashed table's re-insertion growth, the engine call sites that
-trigger them BEFORE a batch can saturate the table, and resume-after-growth.
+an insert. These tests pin the device equivalents: the hashed table's
+re-insertion growth, the engine call sites that trigger it BEFORE a batch can
+saturate the table, the overflow grow-and-replay, and resume-after-growth.
 """
 import pathlib
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from nomalise_kmers_multi_large_tpu.config import Config
 from nomalise_kmers_multi_large_tpu.engine.pipeline import Normalizer
-from nomalise_kmers_multi_large_tpu.ops.mix import mix32
-from nomalise_kmers_multi_large_tpu.table.bucket import BucketTable
-from nomalise_kmers_multi_large_tpu.table.hashed import HashedTable
+from nomalise_kmers_multi_large_tpu.table.hashed import HashedTable, _slot_hash
 
 RNG = np.random.default_rng(11)
 K = 9
@@ -49,60 +46,6 @@ def fastq(tmp_path_factory):
     return p
 
 
-def test_bucket_grown_remap_preserves_entries():
-    """grown() must be a pure relabeling: same (code, count) set after the
-    rows double (the analogue of the reference rehash preserving entries)."""
-    t = BucketTable(K, rows=256, interpret=True)
-    state = t.init()
-    codes = RNG.integers(1, 4**K, size=4096, dtype=np.uint32)
-    mixed = np.asarray(mix32(jnp.asarray(codes), 2 * K)).reshape(32, 128)
-    state, _ = t.process_batch_mixed(
-        state, jnp.asarray(mixed), jnp.ones((32, 128), bool),
-        depth=4, windows_per_read=128,
-    )
-    before = t.export(state)
-    t2, state2 = t.grown(state)
-    assert t2.rows == 512
-    after = t2.export(state2)
-    for a, b in zip(before, after):
-        np.testing.assert_array_equal(a, b)
-    # grow to the 4^k ceiling: overflow becomes structurally impossible
-    while t2.can_grow:
-        t2, state2 = t2.grown(state2)
-    assert t2.capacity == 4**K
-    final = t2.export(state2)
-    for a, b in zip(before, final):
-        np.testing.assert_array_equal(a, b)
-
-
-def test_bucket_growth_end_to_end_matches_direct(fastq, tmp_path):
-    """A stream with ~10x the initial capacity in distinct k-mers: the engine
-    must grow the bucket table mid-run (never dropping an insert) and produce
-    byte-identical output to the growth-free direct table."""
-    cfg_b = Config(
-        forward_files=(str(fastq),), single=True, ksize=K, depth=4,
-        out_dir=str(tmp_path / "b"), table="bucket", batch_reads=128,
-    )
-    cfg_d = Config(
-        forward_files=(str(fastq),), single=True, ksize=K, depth=4,
-        out_dir=str(tmp_path / "d"), table="direct", batch_reads=128,
-    )
-    (tmp_path / "b").mkdir()
-    (tmp_path / "d").mkdir()
-    nb = Normalizer(cfg_b)
-    assert nb.tables[0].rows == 128  # deliberately tiny start (16,384 slots)
-    rb = nb.run()
-    rd = Normalizer(cfg_d).run()
-    assert nb.tables[0].rows > 128, "growth never triggered"
-    assert int(nb.states[0].overflow) == 0, "growth failed to prevent drops"
-    assert (rb.total_processed, rb.total_printed, rb.total_skipped) == (
-        rd.total_processed, rd.total_printed, rd.total_skipped)
-    fb = tmp_path / "b" / f"output_forward.k{K}_norm4_thread0.fastq"
-    fd = tmp_path / "d" / f"output_forward.k{K}_norm4_thread0.fastq"
-    assert fb.read_bytes() == fd.read_bytes()
-    assert rb.max_total_kmers == rd.max_total_kmers
-
-
 def test_hashed_growth_end_to_end_matches_direct(fastq, tmp_path):
     cfg_h = Config(
         forward_files=(str(fastq),), single=True, ksize=K, depth=4,
@@ -132,13 +75,13 @@ def test_resume_rebuilds_grown_table(tmp_path):
     """A checkpoint written after growth restores with matching descriptors."""
     cfg = Config(
         forward_files=("x.fastq",), single=True, ksize=K, depth=4,
-        table="bucket", out_dir=str(tmp_path),
+        table="hashed", out_dir=str(tmp_path), memory_gb=0,
     )
     n = Normalizer(cfg)
-    assert n.tables[0].rows == 128
-    n.states = [BucketTable(K, rows=512, interpret=True).init()]
+    start = n.tables[0].capacity
+    n.states = [HashedTable(K, 2 * start).init()]
     n._rebuild_tables_from_states()
-    assert n.tables[0].rows == 512
+    assert n.tables[0].capacity == 2 * start
 
 
 def test_seed_pass_grows(tmp_path, fastq):
@@ -146,12 +89,14 @@ def test_seed_pass_grows(tmp_path, fastq):
     seed pass inserts through the same store_kmer growth path."""
     cfg = Config(
         forward_files=(str(fastq),), single=True, ksize=K, depth=4,
-        out_dir=str(tmp_path), table="bucket", batch_reads=128,
+        out_dir=str(tmp_path), table="hashed", batch_reads=128,
         seed_records=2000,  # seed the whole file: ~90k distinct k-mers
     )
     n = Normalizer(cfg)
+    n.tables = [HashedTable(K, 4096)]
+    n.states = [n.tables[0].init()]
     n.seed()
-    assert n.tables[0].rows > 128
+    assert n.tables[0].capacity > 4096
     assert int(n.states[0].overflow) == 0
 
 
@@ -190,46 +135,52 @@ def test_mesh_mode_a_grows_mid_stream(fastq, tmp_path):
 
 
 # ----------------------------------------------------------------------
-# Overflow grow-and-replay (round-4 verdict item 5): a bucket row that
-# fills all its lanes BELOW the occupancy growth trigger must not lose
-# inserts silently-forever — the engine detects the overflow at retire,
-# grows from the pre-dispatch state, and replays the group.
+# Overflow grow-and-replay: codes whose probe chains run out BELOW the
+# occupancy growth trigger must not be lost — the engine detects the
+# overflow at retire, grows from the pre-dispatch state, and replays the
+# group.
 # ----------------------------------------------------------------------
 
-def _same_row_reads(k: int, rows: int, n: int) -> list[str]:
-    """n distinct k-length reads whose single k-mer all lands in bucket
-    row 0 (row of code c = mix32(c) >> fp_bits)."""
-    from nomalise_kmers_multi_large_tpu.ops.codec import decode_codes
-    from nomalise_kmers_multi_large_tpu.ops.mix import mix32_np
+def same_home_codes(k: int, capacity: int, n: int) -> np.ndarray:
+    """n distinct k-mer codes that all hash to home slot 0 of a
+    ``capacity``-slot hashed table: each probe round resolves one of them,
+    so more than the probe limit (64) cannot all be placed."""
+    codes = np.arange(1, 4 ** k, dtype=np.uint32)[:2_000_000]
+    h = np.asarray(_slot_hash(jnp.zeros(codes.shape, jnp.uint32),
+                              jnp.asarray(codes)))
+    picked = codes[(h & np.uint32(capacity - 1)) == 0][:n]
+    assert picked.shape[0] == n, "not enough same-home codes in range"
+    return picked
 
-    fp_bits = 2 * k - int(np.log2(rows))
-    codes = np.arange(1, 400_000, dtype=np.uint32)
-    rows_of = mix32_np(codes, 2 * k) >> np.uint32(fp_bits)
-    picked = codes[rows_of == 0][:n]
-    assert picked.shape[0] == n, "not enough same-row codes in range"
+
+def _same_home_reads(k: int, capacity: int, n: int) -> list[str]:
+    from nomalise_kmers_multi_large_tpu.ops.codec import decode_codes
+
+    picked = same_home_codes(k, capacity, n)
     return decode_codes(np.zeros_like(picked), picked, k)
 
 
-def test_bucket_row_overflow_grows_and_replays(tmp_path):
-    """70 distinct k-mers in one 64-lane row, one batch: the dispatch drops
-    6, the retire detects the overflow, grows, replays — and every insert
-    is present afterwards (reference growth precedes loss, nk.c:933-934)."""
+def test_hashed_probe_overflow_grows_and_replays(tmp_path):
+    """70 distinct k-mers on one home slot, one batch: 64 probe rounds place
+    64, the dispatch drops 6, the retire detects the overflow, grows,
+    replays — and every insert is present afterwards (reference growth
+    precedes loss, nk.c:933-934)."""
     k = 11
-    reads = _same_row_reads(k, rows=128, n=70)
-    p = tmp_path / "same_row.fastq"
+    reads = _same_home_reads(k, capacity=1024, n=70)
+    p = tmp_path / "same_home.fastq"
     _write_fastq(p, reads)
     cfg = Config(
         forward_files=(str(p),), single=True, ksize=k, depth=100,
-        out_dir=str(tmp_path / "o"), table="bucket", batch_reads=128,
+        out_dir=str(tmp_path / "o"), table="hashed", batch_reads=128,
         seed_records=1,  # reads are exactly k long: the len>k seed rule
                          # skips them all (nk.c:1347), isolating the main pass
     )
     (tmp_path / "o").mkdir()
     n = Normalizer(cfg)
-    n.tables = [BucketTable(k, rows=128, interpret=True)]
+    n.tables = [HashedTable(k, 1024)]
     n.states = [n.tables[0].init()]
     rep = n.run()
-    assert n.tables[0].rows > 128, "overflow never triggered a replay-grow"
+    assert n.tables[0].capacity > 1024, "overflow never triggered a replay-grow"
     assert int(n.states[0].overflow) == 0, "replay left dropped inserts"
     assert rep.total_printed == 70
     _, lo, counts = n.tables[0].export(n.states[0])
@@ -237,25 +188,25 @@ def test_bucket_row_overflow_grows_and_replays(tmp_path):
         "replay failed to recover every dropped insert"
 
 
-def test_bucket_row_overflow_replay_with_inflight_group(tmp_path):
+def test_hashed_probe_overflow_replay_with_inflight_group(tmp_path):
     """Same saturation split over three single-batch groups so a group is
     already in flight when the overflowing one retires: the engine must
     also re-dispatch the in-flight group from the replayed state."""
     k = 11
-    reads = _same_row_reads(k, rows=128, n=105)
-    p = tmp_path / "same_row3.fastq"
+    reads = _same_home_reads(k, capacity=1024, n=105)
+    p = tmp_path / "same_home3.fastq"
     _write_fastq(p, reads)
     cfg = Config(
         forward_files=(str(p),), single=True, ksize=k, depth=100,
-        out_dir=str(tmp_path / "o"), table="bucket", batch_reads=35,
+        out_dir=str(tmp_path / "o"), table="hashed", batch_reads=35,
         seed_records=1,
     )
     (tmp_path / "o").mkdir()
     n = Normalizer(cfg)
-    n.tables = [BucketTable(k, rows=128, interpret=True)]
+    n.tables = [HashedTable(k, 1024)]
     n.states = [n.tables[0].init()]
     rep = n.run()
-    assert n.tables[0].rows > 128
+    assert n.tables[0].capacity > 1024
     assert int(n.states[0].overflow) == 0
     assert rep.total_printed == 105
     _, lo, counts = n.tables[0].export(n.states[0])

@@ -7,7 +7,7 @@ from nomalise_kmers_multi_large_tpu.config import Config
 from nomalise_kmers_multi_large_tpu.engine.pipeline import Normalizer
 from nomalise_kmers_multi_large_tpu.parallel.engine import MeshNormalizer
 
-T = pathlib.Path("/root/reference/test")
+T = pathlib.Path(__file__).parent / "data"
 
 
 def _read_records(path, lines_per_record=4):
@@ -146,13 +146,12 @@ def test_mesh_checkpoint_resume(tmp_path):
 
 
 def test_mode_a_wide_table_k21(tmp_path):
-    """Mesh Mode A with the WIDE (k>15) bucket table: the two-plane state
-    (keys2) must replicate/shard cleanly and per-shard decisions must match
-    an equivalent single-device run on the same shard's records."""
+    """Mesh Mode A at k > 15 (hashed table): the two-plane key state must
+    replicate/shard cleanly and every shard's outputs must add up."""
     cfg = Config(
         forward_files=(str(T / "2seq.fastq"),), single=True, ksize=21,
         depth=4, batch_reads=2, out_dir=str(tmp_path), sharding="local",
-        table="bucket",
+        table="hashed",
     )
     rep = MeshNormalizer(cfg, n_devices=2).run()
     assert rep.total_processed == 4

@@ -2,7 +2,10 @@
 
 Mode A must equal running 8 independent shards (reference per-thread semantics);
 Mode B must equal the single-device exact run (one global table)."""
+import pathlib
+
 import numpy as np
+import pytest
 import jax
 import jax.numpy as jnp
 
@@ -116,42 +119,30 @@ def test_mode_b_hashed_global_table():
     np.testing.assert_array_equal(np.asarray(keep), np.asarray(keep1))
 
 
-def test_mode_b_bucket_rejected_and_auto_falls_back(tmp_path):
-    """--sharding global + --table bucket is a clear ConfigError; with
-    --table auto the mesh engine falls back to a slot-shardable table instead
-    of handing a pallas_call to GSPMD with a lane-sharded state (VERDICT
-    round-1 weak item 2)."""
-    import pytest
-
-    from nomalise_kmers_multi_large_tpu.config import Config, ConfigError
+@pytest.mark.parametrize("k,kind", [(K, "direct"), (21, "hashed")])
+def test_mode_b_auto_table(tmp_path, k, kind):
+    """--sharding global with --table auto shards the same table a single
+    device would use: the dense direct table for k <= 15, hashed above."""
+    from nomalise_kmers_multi_large_tpu.config import Config
     from nomalise_kmers_multi_large_tpu.parallel.engine import MeshNormalizer
 
     cfg = Config(
-        forward_files=("/root/reference/test/2seq.fastq",), single=True,
-        ksize=K, depth=16, sharding="global", table="bucket",
+        forward_files=(str(pathlib.Path(__file__).parent / "data" / "2seq.fastq"),), single=True,
+        ksize=k, depth=16, sharding="global", table="auto",
         out_dir=str(tmp_path),
     )
-    with pytest.raises(ConfigError, match="bucket"):
-        MeshNormalizer(cfg, 8)
-
-    cfg_auto = Config(
-        forward_files=("/root/reference/test/2seq.fastq",), single=True,
-        ksize=K, depth=16, sharding="global", table="auto",
-        out_dir=str(tmp_path),
-    )
-    m = MeshNormalizer(cfg_auto, 8)
-    assert m.cfg.table_kind in ("direct", "hashed")
+    m = MeshNormalizer(cfg, 8)
+    assert m.cfg.table_kind == kind
+    assert m.cfg.shards == 1
 
 
-def test_mode_a_bucket_table():
-    """The production bucket table composes with shard_map Mode A (auto picks
-    it on TPU, config.table_kind): same decisions as independent per-shard
+def test_mode_a_hashed_table():
+    """The hashed table (its while_loop probe rounds inside shard_map)
+    composes with Mode A: same decisions as independent per-shard
     oracles."""
-    from nomalise_kmers_multi_large_tpu.table import BucketTable
-
     assert jax.device_count() >= S
     mesh = data_mesh(S)
-    table = BucketTable(K, rows=128)
+    table = HashedTable(K, 1 << 12)
     mstep = ModeAStep(mesh, _mk_step(table, DEPTH // S))
     state = mstep.init_states()
 

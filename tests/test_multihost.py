@@ -17,7 +17,7 @@ import sys
 
 import pytest
 
-T = pathlib.Path("/root/reference/test")
+T = pathlib.Path(__file__).parent / "data"
 HELPER = r"""
 import json, os, sys
 pid = int(sys.argv[1])
@@ -62,13 +62,15 @@ def _free_port():
 
 
 def test_two_process_mode_a_aggregation(tmp_path):
-    files = {k: str(T / f"{k}.fastq") for k in ("a1", "a2", "b1", "b2")}
+    # second pair: 2seq as both mates (a2/b2 are not in the repo)
+    files = {"a1": str(T / "a1.fastq"), "b1": str(T / "b1.fastq"),
+             "a2": str(T / "2seq.fastq"), "b2": str(T / "2seq.fastq")}
     helper = tmp_path / "helper.py"
     helper.write_text(HELPER % files)
     port = _free_port()
     env_base = {
         **os.environ,
-        "PYTHONPATH": "/root/repo:/root/repo/tests:"
+        "PYTHONPATH": f"{T.parent.parent}:{T.parent}:"
                       + os.environ.get("PYTHONPATH", ""),
         "JAX_COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
         "JAX_NUM_PROCESSES": "2",

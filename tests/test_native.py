@@ -9,7 +9,7 @@ from nomalise_kmers_multi_large_tpu.io import native
 from nomalise_kmers_multi_large_tpu.io.pack import InvalidSequenceError, pack_batch
 from nomalise_kmers_multi_large_tpu.io.reader import FastxFile
 
-T = pathlib.Path("/root/reference/test")
+T = pathlib.Path(__file__).parent / "data"
 
 
 @pytest.fixture(scope="module")

@@ -1,11 +1,17 @@
 """End-to-end output parity vs the reference binary (golden captures).
 
-Golden data in tests/golden/ was produced by running the compiled reference on
-/root/reference/test data with the table sized to 4^k (capacity clamp,
-parse_arguments :678-684), where the reference's open addressing degenerates to
-exact direct-address counting — the regime BASELINE.md's parity requirement
-targets. Each case asserts byte-identical kept-read output files and identical
-processed/printed/skipped totals.
+Golden data in tests/golden/ was produced by running the compiled reference
+(each case's argv is in its args.txt) with the table sized to 4^k (capacity
+clamp, parse_arguments :678-684), where the reference's open addressing
+degenerates to exact direct-address counting — the regime BASELINE.md's parity
+requirement targets. Each case asserts byte-identical kept-read output files
+and identical processed/printed/skipped totals.
+
+Inputs live in tests/data: 2seq.fastq is the d100 golden's output (every
+record printed); a1/b1.fastq carry the a1/b1.fasta records with the
+qualities of the goldens that print them (placeholder qualities elsewhere,
+which no golden reads). a2/b2 are not in the repo, so the cases that need
+them stay behind the slow marker.
 """
 import pathlib
 import re
@@ -17,7 +23,7 @@ from nomalise_kmers_multi_large_tpu.config import Config
 from nomalise_kmers_multi_large_tpu.engine.pipeline import Normalizer
 
 GOLDEN = pathlib.Path(__file__).parent / "golden"
-T = pathlib.Path("/root/reference/test")
+T = pathlib.Path(__file__).parent / "data"
 
 
 def _golden_stats(case: str):

@@ -2,46 +2,20 @@
 
 Covers: live unique-kmer refresh on the 60 s verbose cadence (reference reads
 ht->used live, nk.c:1715-1723), the --debug>=3 decode(encode) roundtrip
-self-check (nk.c:950-960,976-991), bucket-table depth validation at config
-time (nk.c:734 validates depth up front), and overflow surfacing.
+self-check (nk.c:950-960,976-991), the per-upsert debug lines, and overflow
+surfacing.
 """
 import pathlib
 
 import numpy as np
 import pytest
 
-from nomalise_kmers_multi_large_tpu.config import Config, ConfigError
+from nomalise_kmers_multi_large_tpu.config import Config
 from nomalise_kmers_multi_large_tpu.engine import report as report_mod
 from nomalise_kmers_multi_large_tpu.engine.pipeline import Normalizer
 from nomalise_kmers_multi_large_tpu.engine.report import ShardCounters
 
-T = pathlib.Path("/root/reference/test")
-
-
-def test_bucket_depth_validated_in_config():
-    cfg = Config(
-        forward_files=("x.fastq",), single=True, ksize=15,
-        depth=70_000, table="bucket",
-    )
-    with pytest.raises(ConfigError, match="65535"):
-        cfg.validate()
-
-
-def test_auto_table_falls_back_for_huge_depth():
-    cfg = Config(
-        forward_files=("x.fastq",), single=True, ksize=15, depth=70_000,
-    )
-    # auto must not route a depth outside the bucket kernel's exact counting
-    # range to the bucket table
-    assert cfg.table_kind in ("direct", "hashed")
-
-
-def test_bucket_depth_at_limit_ok():
-    cfg = Config(
-        forward_files=("x.fastq",), single=True, ksize=15,
-        depth=65_535, table="bucket",
-    )
-    cfg.validate()
+T = pathlib.Path(__file__).parent / "data"
 
 
 def test_counters_due_drives_live_refresh(monkeypatch):
@@ -77,15 +51,14 @@ def test_debug3_roundtrip_clean_run(tmp_path, capsys):
     assert (report.total_printed, report.total_skipped) == (2, 2)
 
 
-def test_debug3_roundtrip_bucket_path(tmp_path):
-    """The bucket-path cross-check (fused Pallas keys vs XLA codec + mix) runs
-    in interpret mode on CPU and passes."""
+def test_debug3_roundtrip_wide_k(tmp_path):
+    """At k > 15 the roundtrip decodes both code planes (hashed table)."""
     cfg = Config(
-        forward_files=(str(T / "2seq.fastq"),), single=True, ksize=15, depth=2,
-        out_dir=str(tmp_path), debug=3, table="bucket",
+        forward_files=(str(T / "2seq.fastq"),), single=True, ksize=21, depth=2,
+        out_dir=str(tmp_path), debug=3,
     )
     report = Normalizer(cfg).run()
-    assert (report.total_printed, report.total_skipped) == (2, 2)
+    assert report.total_processed == 4
 
 
 def test_debug3_detects_codec_mismatch(tmp_path, monkeypatch):
@@ -111,19 +84,19 @@ def test_debug3_detects_codec_mismatch(tmp_path, monkeypatch):
 
 
 def test_overflow_surfaces_in_report(tmp_path, capsys):
-    """A bucket table too small for the stream reports dropped inserts instead
+    """A hashed table too small for the stream reports dropped inserts instead
     of losing them silently (reference never drops: nk.c:933-934,1099-1102).
     Growth (test_growth.py) makes this warning unreachable in practice; this
     test pins the reporting path itself with growth disabled."""
     cfg = Config(
         forward_files=(str(T / "a1.fastq"),), single=True, ksize=9, depth=4,
-        out_dir=str(tmp_path), table="bucket", batch_reads=4096,
+        out_dir=str(tmp_path), table="hashed", batch_reads=4096,
     )
     n = Normalizer(cfg)
-    # shrink the table to 1 tile of 128 rows = 16,384 slots for ~200k uniques
-    from nomalise_kmers_multi_large_tpu.table.bucket import BucketTable
+    # shrink the table to 16,384 slots for ~200k uniques
+    from nomalise_kmers_multi_large_tpu.table import HashedTable
 
-    n.tables = [BucketTable(9, rows=128)]
+    n.tables = [HashedTable(9, 1 << 14)]
     n.states = [n.tables[0].init()]
     n._grow_enabled = False
     n.run()
@@ -147,7 +120,7 @@ def test_debug2_upsert_lines_byte_identical_to_reference(tmp_path, capsys):
 
     cfg = Config(
         forward_files=(str(T / "2seq.fastq"),), single=True, ksize=11,
-        depth=2, out_dir=str(tmp_path), table="bucket", debug=3,
+        depth=2, out_dir=str(tmp_path), table="direct", debug=3,
     )
     Normalizer(cfg).run()
     got = [ln for ln in capsys.readouterr().out.splitlines()
@@ -162,7 +135,7 @@ def test_debug2_upsert_lines_per_shard_paired(tmp_path, capsys):
     cfg = Config(
         forward_files=(str(T / "a1.fastq"),),
         reverse_files=(str(T / "b1.fastq"),),
-        ksize=11, depth=4, shards=2, out_dir=str(tmp_path), table="bucket",
+        ksize=11, depth=4, shards=2, out_dir=str(tmp_path), table="direct",
         debug=3, batch_reads=256,
     )
     Normalizer(cfg).run()
@@ -202,7 +175,7 @@ def test_debug2_upsert_lines_canonical_paired_byte_identical(tmp_path,
         forward_files=(str(T / "2seq.fastq"),),
         reverse_files=(str(T / "2seq.fastq"),),
         ksize=11, depth=2, canonical=True,
-        out_dir=str(tmp_path), table="bucket", debug=3,
+        out_dir=str(tmp_path), table="direct", debug=3,
     )
     Normalizer(cfg).run()
     got = [ln for ln in capsys.readouterr().out.splitlines()
@@ -220,7 +193,7 @@ def test_debug2_shadow_resumes_absolute_counts(tmp_path, capsys):
 
     base = dict(
         forward_files=(str(T / "2seq.fastq"),), single=True, ksize=11,
-        depth=2, table="bucket", debug=3, batch_reads=1,
+        depth=2, table="direct", debug=3, batch_reads=1,
     )
     full_dir = tmp_path / "full"
     full_dir.mkdir()

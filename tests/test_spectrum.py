@@ -41,40 +41,18 @@ def test_spectrum_hashed_with_seeds():
     assert sp.total_kmers == 3
 
 
-def test_spectrum_bucket():
-    """Bucket-table states (keys = [rows, 128] fingerprints) must work too —
-    auto picks the bucket table on accelerators, and --spectrum reads the
-    final shard state (regression: 2-D counts crashed jnp.bincount)."""
-    from nomalise_kmers_multi_large_tpu.table import BucketTable
-
-    t = BucketTable(7, rows=128)
+def test_spectrum_hashed_wide():
+    """Two-plane (k > 15) codes in the hashed table: occupancy comes from
+    both key planes, so codes with a zero lo plane still count."""
+    k = 21
+    t = HashedTable(k, 1 << 10)
     s = t.init()
-    codes = np.array([1, 2, 3] + [4] * 5 + [5] * 5 + [6] * 10, np.uint32)
-    s, _ = t.process_batch_mixed(
-        s, jnp.asarray(codes)[None, :], jnp.ones((1, len(codes)), bool),
-        depth=100, windows_per_read=len(codes))
+    big = 1 << 40
+    codes = ([big + 1, big + 2, 1 << 32] + [big + 4] * 5 + [big + 5] * 5
+             + [3] * 10)
+    s, _ = t.count_and_update(s, _stream(codes))
     sp = spectrum(t, s)
     assert sp.distinct_kmers == 6
     assert sp.total_kmers == len(codes)
     assert sp.histogram[1] == 3 and sp.histogram[5] == 2 and sp.histogram[10] == 1
     assert sp.coverage_peak == 5
-
-
-def test_spectrum_wide_bucket():
-    from nomalise_kmers_multi_large_tpu.ops.mix import feistel_words_np
-    from nomalise_kmers_multi_large_tpu.table import BucketTableWide
-
-    k = 21
-    t = BucketTableWide(k, rows=512)
-    s = t.init()
-    codes = np.array([11, 12, 13] + [14] * 5 + [15] * 5 + [16] * 10,
-                     np.uint64)
-    w1, w2 = feistel_words_np(codes, 2 * k)
-    s, _ = t.process_batch_keys(
-        s, jnp.asarray(w1[None, :]), jnp.asarray(w2[None, :]),
-        jnp.ones((1, len(codes)), bool), depth=3,
-        windows_per_read=len(codes))
-    sp = spectrum(t, s)
-    assert sp.distinct_kmers == 6
-    assert sp.total_kmers == len(codes)
-    assert sp.histogram[1] == 3 and sp.histogram[5] == 2 and sp.histogram[10] == 1

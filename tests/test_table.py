@@ -124,3 +124,27 @@ def test_hashed_high_load_insert_all_resolve():
     _, lo, counts = table.export(state)
     assert sorted(lo.tolist()) == list(range(1, 181))
     assert (counts == 1).all()
+
+
+@pytest.mark.parametrize("n", [40, 64, 70])
+def test_ticket_protocol_same_home_slot(n):
+    """Many distinct codes forced onto ONE home slot: every probe round's
+    claim scatter sees all pending codes write the same slot, and exactly
+    one ticket may survive it, whichever duplicate write the backend keeps.
+    So round r places exactly one code: n <= 64 (the probe limit) all
+    resolve to distinct slots; beyond it the rest are counted as overflow,
+    never silently merged."""
+    from test_growth import same_home_codes
+
+    cap = 1024
+    table = HashedTable(11, cap)
+    state = table.init()
+    codes = same_home_codes(11, cap, n).astype(np.uint64)
+    s = _stream(codes, np.ones(n, bool))
+    state, _ = table.count_and_update(state, s)
+    placed = min(n, 64)
+    assert int(state.used) == placed
+    assert int(state.overflow) == n - placed
+    _, lo, counts = table.export(state)
+    assert lo.shape[0] == placed and (counts == 1).all()
+    assert set(lo.tolist()) <= set(codes.tolist())
